@@ -1,6 +1,6 @@
 #!/bin/bash
-# phase-split campaign with process-level retry (TPU worker crashes are
-# flaky; a fresh process recompiles cleanly)
+# phase-split campaign with process-level retry (a failed phase reruns
+# in a fresh process, which recompiles cleanly)
 OUT=${1:-/root/repo/artifacts/campaign_final}
 LOG=$OUT.log
 cd /root/repo

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Benchmark: batched repeat-campaign throughput on one TPU chip.
+"""Benchmark: batched repeat-campaign throughput on one device.
 
 Prints ONE JSON line:
   {"metric": "env_steps_per_sec_per_chip", "value": N, "unit": "steps/s",
@@ -101,6 +101,9 @@ def _measure_mode(mode: str, names, n_ticks: int, teach_ticks: int,
 
 
 def main():
+    from nclt_slam_tpu.runtime import init_runtime
+
+    init_runtime()
     n_routes = int(os.environ.get("BENCH_ROUTES", "15"))
     # 500 = 2 x the 250-tick chunk, so the timed window reuses the warm
     # phase's chunk executable (one compile for both)
@@ -143,6 +146,9 @@ def main():
         extra["roofline"] = _roofline()
 
     baseline = 0.24 * 200.0  # reference: 18-30 % of real time, one route
+    dev = jax.devices()[0]
+    extra["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())}
     print(json.dumps({
         "metric": "env_steps_per_sec_per_chip",
         "value": round(steps_per_sec, 1),
@@ -166,43 +172,37 @@ def _ba_flops_per_iter(K: int, P: int) -> float:
 
 
 def _roofline():
-    """Roofline context for the flagship kernels (VERDICT r1 #8).
+    """Work counts beside the rates of the secondary solvers.
 
     BA: solves/s over a window-size sweep up to covisibility scale, with
-    achieved TFLOP/s from the analytic count and MFU vs the chip's bf16
-    peak (~197 TFLOP/s on v5e; we run jax_default_matmul_precision=highest
-    so fp32-accurate passes cost extra MXU cycles — MFU is reported against
-    the bf16 ceiling to stay conservative).
+    achieved TFLOP/s from the analytic count (no peak is assumed: the
+    device's peak table belongs with the benchmark's device check).
 
     Raycaster: rays/s for the full 15-route sensing batch plus the analytic
     per-ray cost (34 terrain evals x ~70 FLOP + N_collider cylinder tests
-    x ~30 FLOP) — VPU/transcendental-bound, not MXU.
+    x ~30 FLOP), element-wise and transcendental work with no matmul.
     """
-    PEAK_BF16 = 197e12
-    out = {"ba_sweep": [], "peak_bf16_tflops": 197.0}
+    out = {"ba_sweep": []}
     for K, P, batch in [(10, 48, 64), (10, 128, 64), (16, 256, 32),
                         (24, 512, 8)]:
-        for impl in ("xla", "pallas"):
-            rate = _bench_ba(batch=batch, iters=8, K=K, P=P, impl=impl)
-            fl = _ba_flops_per_iter(K, P) * 8
-            achieved = rate * fl
-            out["ba_sweep"].append({
-                "K": K, "P": P, "batch": batch, "impl": impl,
-                "solves_per_sec": round(rate, 1),
-                "gflops_per_solve": round(fl / 1e9, 3),
-                "achieved_tflops": round(achieved / 1e12, 3),
-                "mfu_bf16_pct": round(100.0 * achieved / PEAK_BF16, 2),
-            })
+        rate = _bench_ba(batch=batch, iters=8, K=K, P=P)
+        fl = _ba_flops_per_iter(K, P) * 8
+        out["ba_sweep"].append({
+            "K": K, "P": P, "batch": batch,
+            "solves_per_sec": round(rate, 1),
+            "gflops_per_solve": round(fl / 1e9, 3),
+            "achieved_tflops": round(rate * fl / 1e12, 3),
+        })
     out["raycast"] = _bench_raycast()
     out["pgo"] = _bench_pgo()
     return out
 
 
 def _bench_pgo(K: int = 2000, n_loops: int = 48, iters: int = 5):
-    """km-scale 2-D PGO: the fused Pallas junction solver (production path,
-    datasets/slam/pipeline.py) vs the XLA dense jacfwd optimizer it
-    replaced, at the NCLT ladder's 2000-pose shape.  Also reports the
-    XLA-reduced middle ground so the kernel's own contribution is visible."""
+    """km-scale 2-D PGO: the fused junction-reduced solver (production path,
+    datasets/slam/pipeline.py) vs the dense jacfwd optimizer it replaced, at
+    the NCLT ladder's 2000-pose shape, plus the host-reduced middle
+    ground."""
     import numpy as np
 
     from nclt_slam_tpu.datasets.slam.loop_closure import (
@@ -211,7 +211,6 @@ def _bench_pgo(K: int = 2000, n_loops: int = 48, iters: int = 5):
         optimize_pose_graph_fast,
         reduce_pose_graph,
     )
-    from nclt_slam_tpu.ops.pgo_pallas import optimize_pgo_pallas
 
     rng = np.random.RandomState(11)
     th = np.linspace(0, 4 * np.pi, K)
@@ -258,8 +257,6 @@ def _bench_pgo(K: int = 2000, n_loops: int = 48, iters: int = 5):
     f_red = jax.jit(lambda g, w: optimize_pose_graph(g, iters=iters,
                                                      odo_w=w))
     t_red = t_of(lambda: jax.block_until_ready(f_red(reduced, red_w)))
-    t_pal = t_of(lambda: jax.block_until_ready(
-        optimize_pgo_pallas(reduced, red_w, iters=iters)))
     # production path end-to-end: the fused single-program default
     # (on-device reduce -> reduced GN -> expand, loop_closure._pgo_fused)
     t_fast = t_of(lambda: jax.block_until_ready(
@@ -269,10 +266,8 @@ def _bench_pgo(K: int = 2000, n_loops: int = 48, iters: int = 5):
         "Kr": int(reduced.poses.shape[0]),
         "xla_dense_s": round(t_dense, 3),
         "xla_reduced_s": round(t_red, 4),
-        "pallas_reduced_s": round(t_pal, 4),
         "fast_end_to_end_s": round(t_fast, 4),
         "speedup_vs_dense": round(t_dense / max(t_fast, 1e-9), 1),
-        "kernel_vs_xla_reduced": round(t_red / max(t_pal, 1e-9), 2),
     }
 
 
@@ -315,20 +310,16 @@ def _bench_raycast(batch: int = 15, reps: int = 50):
         "frames_per_sec": round(batch * reps / dt, 1),
         "flops_per_ray_est": round(flops_per_ray, 0),
         "achieved_gflops": round(rays_per_sec * flops_per_ray / 1e9, 1),
-        "note": "VPU/transcendental-bound (terrain sines), not MXU",
     }
 
 
 def _bench_ba(batch: int = 64, iters: int = 8, K: int | None = None,
-              P: int | None = None, impl: str = "pallas"):
-    """Batched sliding-window BA throughput (default 10 KF x 128 pts).
-
-    impl='pallas' runs the fused single-launch kernel (ops/ba_pallas.py,
-    the flagship); impl='xla' the reference einsum path (vio/ba.py)."""
+              P: int | None = None):
+    """Batched sliding-window BA throughput (default 10 KF x 128 pts),
+    vmapped vio/ba.py:solve_ba."""
     import numpy as np
 
     from nclt_slam_tpu import config as cfg_mod
-    from nclt_slam_tpu.ops.ba_pallas import solve_ba_pallas
     from nclt_slam_tpu.vio.ba import BAProblem, solve_ba
 
     cfg = cfg_mod.DEFAULT
@@ -356,13 +347,8 @@ def _bench_ba(batch: int = 64, iters: int = 8, K: int | None = None,
 
     probs = jax.tree_util.tree_map(
         lambda *xs: jnp.stack(xs), *[mk(s) for s in range(batch)])
-    if impl == "pallas":
-        interp = jax.default_backend() != "tpu"
-        f = jax.jit(lambda p: solve_ba_pallas(p, cfg.camera, cfg.vio,
-                                              iters=iters, interpret=interp))
-    else:
-        f = jax.jit(jax.vmap(lambda p: solve_ba(
-            p, cfg.camera, cfg.vio, iters=iters)))
+    f = jax.jit(jax.vmap(lambda p: solve_ba(
+        p, cfg.camera, cfg.vio, iters=iters)))
     out = f(probs)
     jax.block_until_ready(out.kf_pos)
     t0 = time.perf_counter()

@@ -7,7 +7,7 @@
 // and the teach mapper's per-cell Bresenham log-odds update (the exact
 // reference semantics of teach_run_depth_mapper._bresenham_mark, used both
 // for fast host-side map building from recorded logs and as the golden
-// reference the TPU scatter-based mapper is validated against).
+// reference the scatter-based JAX mapper is validated against).
 //
 // Exposed with a plain C ABI for ctypes (no pybind11 in this image).
 

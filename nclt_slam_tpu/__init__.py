@@ -1,6 +1,6 @@
-"""nclt_slam_tpu — TPU-native teach-and-repeat simulation + navigation framework.
+"""nclt_slam_tpu — batched teach-and-repeat simulation + navigation framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the
+A ground-up JAX/XLA rebuild of the capabilities of the
 vbronetskyi/nclt-slam-project reference (Visual-Inertial SLAM and Navigation
 for an outdoor UGV).  Instead of the reference's 7-9-process ROS2 graph, the
 entire teach/repeat inner loop is one pure jitted function rolled with
@@ -22,14 +22,15 @@ Layer map (bottom-up), mirroring SURVEY.md §7:
 - ``eval``      coverage/endpoint/drift metrics, ATE/RPE
 - ``io``        reference-format artefact interop (landmarks.pkl, PGM/YAML maps, CSV)
 - ``parallel``  device-mesh sharding of the route batch
-- ``ops``       Pallas TPU kernels for the hot paths
+- ``ops``       CUDA kernels for the hot paths, called through the XLA FFI
 """
 
 __version__ = "0.1.0"
 
 import jax as _jax
 
-# Pose/geometry math needs true f32 matmuls; TPU MXU defaults to bf16 inputs
-# which breaks SE(3) round-trips at the 1e-3 level.  Hot kernels that want
-# bf16 throughput request it explicitly via preferred_element_type/dtypes.
+# Pose/geometry math needs true f32 matmuls: without this a GPU may run f32
+# matmuls in TF32 (about three decimal digits), which breaks SE(3) round
+# trips at the 1e-3 level.  Code that wants reduced-precision throughput
+# asks for it explicitly via preferred_element_type/dtypes.
 _jax.config.update("jax_default_matmul_precision", "highest")

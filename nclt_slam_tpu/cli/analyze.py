@@ -82,10 +82,9 @@ def main(argv=None):
     ap.add_argument("--platform", default="cpu")
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -37,10 +37,9 @@ def main(argv=None):
     ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
 
     from nclt_slam_tpu.cli.common import config_for, write_metrics
     from nclt_slam_tpu.rollout.campaign import (

@@ -20,9 +20,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    jax.config.update("jax_platforms", "cpu")
+    init_runtime("cpu")
 
     import numpy as np
 

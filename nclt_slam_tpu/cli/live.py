@@ -20,7 +20,6 @@ chunks and exposes the carry between chunks:
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -151,19 +150,36 @@ def _handler(live: LiveState):
     return H
 
 
+def _png_gray(img) -> bytes:
+    """(H, W) uint8 -> 8-bit grayscale PNG bytes (zlib + numpy, no PIL)."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
 def _depth_png(depth, dvalid, cfg):
-    """Depth frame -> grayscale PNG bytes (near bright, far dark)."""
+    """Depth frame -> 320x240 grayscale PNG bytes (near bright, far dark,
+    nearest-neighbour upscaled)."""
     import numpy as np
-    from PIL import Image
 
     d = np.asarray(depth, np.float32)
     v = np.asarray(dvalid)
     g = np.where(v, 1.0 - np.clip(d / cfg.camera.depth_max, 0, 1), 0.0)
-    img = Image.fromarray((g * 255).astype(np.uint8), "L").resize(
-        (320, 240), Image.NEAREST)
-    buf = io.BytesIO()
-    img.save(buf, "PNG")
-    return buf.getvalue()
+    rows = np.arange(240) * g.shape[0] // 240
+    cols = np.arange(320) * g.shape[1] // 320
+    img = (g[rows[:, None], cols[None, :]] * 255).astype(np.uint8)
+    return _png_gray(np.ascontiguousarray(img))
 
 
 def inject_goal(carry, goal_xy, cfg):
@@ -203,10 +219,11 @@ def main(argv=None):
                     help="(testing) stop after N chunks")
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
+
+    import jax
 
     import jax.numpy as jnp
     import numpy as np

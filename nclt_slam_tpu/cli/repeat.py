@@ -29,10 +29,11 @@ def main(argv=None):
     ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
+
+    import jax
 
     import numpy as np
 

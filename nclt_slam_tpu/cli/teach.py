@@ -23,10 +23,11 @@ def main(argv=None):
                     help="force jax platform (e.g. cpu)")
     args = ap.parse_args(argv)
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
+
+    import jax
 
     from nclt_slam_tpu.cli.common import config_for, write_teach_artifacts
     from nclt_slam_tpu.rollout import pack_route, pack_scene, run_teach

@@ -66,11 +66,9 @@ class CameraConfig:
     ray_rows: int = 60
     ray_steps: int = 96                # fixed ray-march steps
     # sample the baked bilinear terrain texture in the ray march instead of
-    # the analytic field.  With the gather-free hat-sum road_y the analytic
-    # field costs ~7 ms per 15-route render vs ~95 ms for texture gathers
-    # (TPU gathers are the bottleneck, not transcendentals) — so the exact
-    # analytic field is both faster AND error-free.  Kept as an option for
-    # future irregular (non-closed-form) terrains.
+    # the analytic field.  The analytic field (gather-free hat-sum road_y)
+    # is exact; the texture trades gathers for transcendentals.  Kept as an
+    # option for future irregular (non-closed-form) terrains.
     ray_terrain_tex: bool = False
     # base_link -> camera extrinsics (visual_landmark_recorder.py:81-88)
     cam_offset_fwd: float = 0.35
@@ -436,7 +434,6 @@ class PlannerConfig:
 
     window: int = 192                  # local planning crop (cells, 19.2 m)
     sweeps: int = 2                    # Jacobi rounds (x window iterations)
-    use_pallas: bool = True            # VMEM-resident relaxation kernel
     # two-level planning: a full-map cost-to-goal potential on a coarse
     # static grid seeds the fine window's BORDER, so the window can route
     # toward bypasses longer than itself — the reference's NavFn plans on
@@ -619,7 +616,7 @@ class EvalConfig:
 
 @_frozen
 class VioConfig:
-    """TPU VIO front+back end (capability match for ORB-SLAM3 RGB-D-inertial)."""
+    """VIO front+back end (capability match for ORB-SLAM3 RGB-D-inertial)."""
 
     window_kf: int = 16                # sliding window keyframes (8 m of
     #                                    travel at kf_min_disp — local-map

@@ -2,10 +2,10 @@
 
 The reference scaffolds MinkLoc3D (MinkowskiEngine sparse conv + GeM +
 triplet loss with hard mining, datasets/nclt_kaggle/src/models/
-place_recognition.py:24-167) but never trains it.  TPUs have no sparse-conv
-engine; the TPU-native formulation voxelizes each scan onto a dense
-occupancy grid and runs a small 3-D conv encoder — dense conv is exactly
-what the MXU eats.  GeM pooling, triplet margin loss with batch-hard
+place_recognition.py:24-167) but never trains it.  Without a sparse-conv
+engine, this formulation voxelizes each scan onto a dense occupancy grid
+and runs a small 3-D conv encoder — dense conv maps onto the matrix
+units.  GeM pooling, triplet margin loss with batch-hard
 mining, and the Recall@K protocol match the reference.
 """
 

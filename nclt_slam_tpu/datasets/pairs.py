@@ -2,7 +2,7 @@
 
 Re-implements the reference's NCLT Kaggle pair-mining protocol
 (datasets/nclt_kaggle/src/datasets/nclt_pairs.py:243-305 +
-configs/dataset_config.yaml:33-39) TPU-first:
+configs/dataset_config.yaml:33-39) in fixed shapes:
 
 - session-date split registry (train 4 / val 2 / test 4 sessions)
 - per-anchor mining: the CLOSEST pose within ``positive_threshold`` (10 m,

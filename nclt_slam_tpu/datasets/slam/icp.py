@@ -3,7 +3,7 @@
 Capability match for datasets/nclt/src/slam/icp_odometry.py +
 imu_fusion.py's odometry-aided variant: point-to-point and point-to-plane
 ICP with fixed iteration counts and brute-force nearest neighbors (dense
-distance matrices — the TPU-shaped choice for the reference's ~4k-point
+distance matrices — the batched choice for the reference's ~4k-point
 downsampled scans), wheel-odometry prediction as the initial guess, a
 sliding voxel local map, and RANSAC ground removal.  Everything is fixed-
 shape and vmappable over scan pairs.
@@ -28,7 +28,7 @@ def _nearest(src, dst, dst_valid):
     """Brute-force NN: for each src point the nearest dst point.
 
     src (N, 3), dst (M, 3) -> (idx (N,), dist (N,)).  Dense (N, M) distance
-    matrix = one big matmul-shaped op; ideal MXU/VPU work for <=8k points.
+    matrix = one big matmul-shaped op, a good fit for <=8k points.
     """
     d2 = ((src[:, None, :] - dst[None, :, :]) ** 2).sum(-1)
     d2 = jnp.where(dst_valid[None, :], d2, jnp.inf)

@@ -3,7 +3,7 @@
 Capability match for the reference's Open3D-backed global registration
 (datasets/nclt/src/slam/loop_closure.py:15-207: FPFH features + RANSAC
 feature matching + ICP refinement before accepting a loop edge).  The
-TPU-native shape: normals from dense k-NN covariance eigenvectors, a
+batched shape: normals from dense k-NN covariance eigenvectors, a
 simplified FPFH (Darboux-angle histograms over the k-NN graph, SPFH +
 neighbor-weighted sum like Rusu et al.), feature correspondences as one
 dense descriptor-distance matmul, and Kabsch over vmapped 3-point RANSAC

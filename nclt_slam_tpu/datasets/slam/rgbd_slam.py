@@ -11,7 +11,7 @@ verification, and the shared 2-D pose-graph backend — all running on worlds
 generated by our own scene stack and frames rendered by our own sensor
 model (no second engine).
 
-TPU shape: the per-frame step (match + Kabsch) is one jitted function; the
+Shape: the per-frame step (match + Kabsch) is one jitted function; the
 sequence loop is host-side like datasets/slam/pipeline.py (sessions are
 IO-bound streams).
 """

@@ -4,7 +4,7 @@ place-recognition / dataset stack.
 Capability match for the reference's
 ``datasets/nclt_kaggle/src/datasets/transforms.py:1-195`` (Compose,
 RandomRotation, RandomFlip, RandomJitter, RandomSubsample, VoxelDownsample,
-Normalize, RemoveGround, build_transforms), redesigned for TPU:
+Normalize, RemoveGround, build_transforms), redesigned for jit:
 
 - every transform is a PURE function ``(key, points, mask) -> (points, mask)``
   with an explicit RNG key (no hidden ``np.random`` state), so pipelines jit,

@@ -1,6 +1,6 @@
 """Batched differential-drive UGV dynamics on the analytic terrain.
 
-TPU-native replacement for Isaac/PhysX rigid-body stepping
+Batched replacement for Isaac/PhysX rigid-body stepping
 (run_husky_forest.py:430-441,1056-1073): the Husky is modeled as a
 diff-drive unicycle with first-order wheel-drive lag, multiplicative wheel
 slip noise, and terrain-conforming attitude.  200 Hz substeps with the

@@ -11,7 +11,7 @@ Capability match for the reference's ROVER pipeline scripts:
   ``rectify_t265_stereo.py:64-120`` does with
   ``cv2.fisheye.initUndistortRectifyMap``, here as pure array math: map
   construction is closed-form numpy; the per-image bilinear remap is a
-  jitted gather that batches over frames on the TPU.
+  jitted gather that batches over frames on the device.
 
 The reference's ROVER occupancy+A* demo (``occupancy_astar.py``) is the
 design precursor of this framework's mapping/ + planning/ layers — that
@@ -108,7 +108,7 @@ def fisheye_rectify_maps(K_fish, dist_k4, K_new, out_size):
 def remap_bilinear(img, map_x, map_y):
     """Bilinear resample ``img`` (H, W) or (H, W, C) at float source coords
     (the cv2.remap(INTER_LINEAR) step) — jitted, vmappable over a batch of
-    frames for TPU-side rectification."""
+    frames for on-device rectification."""
     img = jnp.asarray(img)
     chan = img.ndim == 3
     if not chan:

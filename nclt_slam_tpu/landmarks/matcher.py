@@ -4,7 +4,7 @@
 heading within 90° (top-5 by distance), match descriptors with a mutual
 cross-check, solve the relative camera pose teach->live with batched
 RANSAC (vmapped 3-point Kabsch hypotheses scored by 2-D reprojection — the
-TPU-shaped equivalent of solvePnPRansac ITERATIVE/200it/3px), apply the
+batched equivalent of solvePnPRansac ITERATIVE/200it/3px), apply the
 reference's gates (>= 10 matches, >= 10 inliers, median reproj <= 2 px),
 compose the anchor pose through the teach camera's world pose, reject
 anchors > 5 m from VIO, and map inlier count -> anchor std
@@ -43,14 +43,12 @@ R_CONSISTENCY_FAIL = 4
 def _kabsch(P, Q, w):
     """Weighted rigid alignment R,t with R @ P + t ~= Q.
     P, Q (..., N, 3), w (..., N); leading batch dims supported and computed
-    as one batched program (a vmapped per-hypothesis form keeps the sample
-    gather fused inside each lane and measured ~7x slower on TPU for the
-    200-hypothesis RANSAC batch).
+    as one batched program over the 200-hypothesis RANSAC batch.
 
     Horn's quaternion method with power iteration instead of SVD: XLA lowers
-    tiny SVDs to an iterative decomposition that is catastrophically slow on
-    TPU when vmapped x1000 (RANSAC hypotheses); the 4x4 eigenvector via a
-    fixed-count power iteration is pure fused arithmetic."""
+    tiny SVDs to an iterative decomposition, slow when vmapped x1000 (RANSAC
+    hypotheses); the 4x4 eigenvector via a fixed-count power iteration is
+    pure fused arithmetic."""
     from nclt_slam_tpu.core.quat import quat_to_mat
 
     w = w[..., None]
@@ -60,10 +58,9 @@ def _kabsch(P, Q, w):
     H = jnp.einsum("...ni,...nj->...ij", (P - mp) * w, Q - mq)  # (..., 3, 3)
 
     # Horn's N matrix (quaternion order w, x, y, z), kept as a 4x4 python
-    # grid of BATCH-shaped scalars.  A stacked (..., 4, 4) array would put
-    # the size-4 dims on the TPU tile's (8, 128) minor axes — ~32x lane
-    # waste replicated across every power-iteration step; as (batch,)
-    # element-wise ops the 4x4 algebra is fully unrolled and fully packed.
+    # grid of BATCH-shaped scalars: as (batch,) element-wise ops the 4x4
+    # algebra is fully unrolled and the batch stays the minor axis, instead
+    # of tiny size-4 minor dims on every power-iteration step.
     sxx, sxy, sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     syx, syy, syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     szx, szy, szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]

@@ -1,13 +1,17 @@
 """Jitted wavefront global planner — the NavFn/A* equivalent.
 
 The reference calls Nav2's C++ NavFn planner over a 0.1 m costmap
-(nav2_planner_defaults.yaml: use_astar, tolerance 1.0).  Heap-based A* is
-hostile to TPUs, so we compute the full potential field by iterated
+(nav2_planner_defaults.yaml: use_astar, tolerance 1.0).  A heap-ordered A*
+does not batch, so we compute the full potential field by iterated
 8-neighbor min-plus relaxation over a fixed local window (Bellman-Ford /
-value-iteration — each sweep is a handful of rolls + mins on the whole
-window, pure VPU work), then extract the path by steepest descent.  This is
-exactly NavFn's potential-propagation formulation, just parallel-in-space
-instead of queue-ordered.
+value-iteration — each sweep is a handful of shifts + mins on the whole
+window), then extract the path by steepest descent.  This is exactly
+NavFn's potential-propagation formulation, just parallel-in-space instead
+of queue-ordered.
+
+The relaxation (``relax``) runs as one CUDA kernel launch on NVIDIA GPUs
+(ops/wavefront.cu) and as an XLA ``fori_loop`` (``relax_xla``) elsewhere;
+both compute the same f32 sums and mins in the same order.
 
 Costs enter the traversal metric the NavFn way: step_cost = dist * (1 +
 w * cell_cost), lethal cells (>= 99) are impassable.
@@ -21,8 +25,10 @@ import jax
 import jax.numpy as jnp
 
 from nclt_slam_tpu.config import MapConfig, PlannerConfig
+from nclt_slam_tpu.ops.wavefront_cuda import relax_cuda
 
 BIG = jnp.float32(1e9)
+DIAG = 1.4142135
 
 
 class PlanResult(NamedTuple):
@@ -58,6 +64,25 @@ def _neighbor_min(phi, tc, diag_scale):
     return best
 
 
+def relax_xla(tc, phi0, n_iter: int):
+    """``n_iter`` Jacobi sweeps of the 8-neighbor min-plus update (the
+    reference implementation; a fixed trip count, no convergence check)."""
+
+    def body(_, phi):
+        return jnp.minimum(phi, _neighbor_min(phi, tc, DIAG))
+
+    return jax.lax.fori_loop(0, n_iter, body, phi0)
+
+
+def relax(tc, phi0, n_iter: int):
+    """``relax_xla`` on every platform but CUDA, where the whole relaxation
+    is one kernel launch that keeps the potential in shared memory."""
+    return jax.lax.platform_dependent(
+        tc, phi0,
+        cuda=lambda t, p: relax_cuda(t, p, n_iter),
+        default=lambda t, p: relax_xla(t, p, n_iter))
+
+
 def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
                 cfg: PlannerConfig, border_phi=None) -> PlanResult:
     """Plan inside a (window, window) cost crop.
@@ -84,22 +109,8 @@ def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
     if border_phi is not None:
         phi0 = jnp.minimum(phi0, border_phi)
 
-    n_iter = cfg.sweeps * W  # each Jacobi sweep propagates one ring
-
-    if cfg.use_pallas:
-        import jax as _jax
-
-        from nclt_slam_tpu.ops.wavefront_pallas import wavefront_potential_pallas
-
-        phi = wavefront_potential_pallas(
-            tc, phi0, n_iter=n_iter, res=res,
-            interpret=_jax.default_backend() != "tpu")
-    else:
-        def body(_, phi):
-            return jnp.minimum(phi, _neighbor_min(phi, tc, 1.4142135))
-
-        # fixed trip count keeps XLA happy (no convergence check)
-        phi = jax.lax.fori_loop(0, n_iter, body, phi0)
+    # each Jacobi sweep propagates one ring
+    phi = relax(tc, phi0, cfg.sweeps * W)
 
     sr, sc = start_rc
     ok = phi[sr, sc] < BIG
@@ -114,7 +125,7 @@ def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
             if (dr, dc) != (0, 0)]
     rr = jnp.asarray(offs, jnp.int32)
     step_scale = jnp.asarray(
-        [1.4142135 if (dr and dc) else 1.0 for dr, dc in offs], jnp.float32)
+        [DIAG if (dr and dc) else 1.0 for dr, dc in offs], jnp.float32)
 
     def step(carry, _):
         r, c, done = carry
@@ -167,11 +178,7 @@ def coarse_potential(tc_coarse, goal_xy, map_cfg: MapConfig,
     gr = jnp.clip((goal_xy[1] - map_cfg.origin_y) / res_c,
                   0, Rc - 1).astype(jnp.int32)
     phi0 = jnp.full((Rc, Cc), BIG).at[gr, gc].set(0.0)
-
-    def body(_, phi):
-        return jnp.minimum(phi, _neighbor_min(phi, tc_coarse, 1.4142135))
-
-    return jax.lax.fori_loop(0, cfg.coarse_iters, body, phi0)
+    return relax_xla(tc_coarse, phi0, cfg.coarse_iters)
 
 
 def _border_seed(coarse_phi, win_r0, win_c0, map_cfg: MapConfig,

@@ -4,7 +4,7 @@ The reference runs its 15-route campaign sequentially, one OS-process-graph
 at a time, 12-87 min per route (routes/README.md:24-40).  Here the whole
 campaign is a single batched program: teach passes vmapped over routes, then
 repeat passes vmapped over routes (and optionally over ablation configs by
-calling again with a different Config).  On multiple chips the route axis
+calling again with a different Config).  On several GPUs the route axis
 shards over the mesh (see nclt_slam_tpu.parallel).
 """
 
@@ -100,10 +100,11 @@ def planned_chunks(n_ticks: int, chunk: int) -> tuple[int, int]:
 def run_campaign_teach(data: CampaignData, cfg: Config, n_ticks: int,
                        chunk: int = 250, progress=None,
                        stop_when_done: bool = True) -> TeachResult:
-    """Batched teach, chunked at the host level: the TPU worker kills
-    single executions longer than ~60 s (measured: a 15-route ours-mode
-    chunk runs ~123 ms/tick, so 500-tick chunks died while <=250 is safe),
-    and chunking gives free progress reporting + checkpointability."""
+    """Batched teach, chunked at the host level: between chunks the host
+    reports progress, checks the all-routes-done early exit and can
+    checkpoint the carry, and one chunk is the unit the compiled program
+    covers.  The 250-tick default is a tuning knob, not a limit of the
+    device; its cost on the GPU is not measured yet."""
     n_chunks, chunk = planned_chunks(n_ticks, chunk)
     f = _cached_jit(("teach", cfg, chunk), lambda: jax.jit(jax.vmap(
         lambda sc, rt, c, t0: run_teach(sc, rt, cfg, chunk, carry=c,
@@ -177,6 +178,16 @@ def apply_stock_projection(teach_grids, wps, n_wps, cfg: Config):
     return jnp.asarray(np.stack(out_w)), jnp.asarray(np.asarray(out_n))
 
 
+def repeat_chunk_program(cfg: Config, chunk: int):
+    """The jitted, route-vmapped ``chunk``-tick repeat program that
+    ``run_campaign_repeat`` calls once per chunk with (scenes_repeat,
+    routes, teach_grids, wps, n_wps, stores, carry, tick0)."""
+    return _cached_jit(("repeat", cfg, chunk), lambda: jax.jit(jax.vmap(
+        lambda sc, rt, tg, wp, nw, st, c, t0: run_repeat(
+            sc, rt, tg, wp, nw, cfg, chunk, store=st, carry=c, tick0=t0),
+        in_axes=(0, 0, 0, 0, 0, 0, 0, None))))
+
+
 def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
                         cfg: Config, n_ticks: int, stores=None,
                         chunk: int = 250, progress=None, carry=None,
@@ -206,10 +217,7 @@ def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
     if stores is None:
         stores = jax.vmap(lambda _: init_store(cfg.landmarks))(
             jnp.arange(wps.shape[0]))
-    f = _cached_jit(("repeat", cfg, chunk), lambda: jax.jit(jax.vmap(
-        lambda sc, rt, tg, wp, nw, st, c, t0: run_repeat(
-            sc, rt, tg, wp, nw, cfg, chunk, store=st, carry=c, tick0=t0),
-        in_axes=(0, 0, 0, 0, 0, 0, 0, None))))
+    f = repeat_chunk_program(cfg, chunk)
     if carry is None:
         carry = jax.vmap(
             lambda rt, wp, nw: init_repeat_carry(rt, wp, nw, cfg))(

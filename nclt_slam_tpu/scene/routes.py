@@ -144,7 +144,7 @@ def _shifted(field: np.ndarray, dr: int, dc: int, fill: np.float32) -> np.ndarra
 def distance_field(grid: np.ndarray, goal_rc) -> np.ndarray:
     """Exact 8-connected shortest-path cost-to-goal over the free space,
     computed by whole-array Bellman relaxation sweeps (the numpy twin of
-    ops/wavefront_pallas.py).  Obstacle cells stay at +inf."""
+    planning/wavefront.py:relax).  Obstacle cells stay at +inf."""
     dist = np.full(grid.shape, _INF, np.float32)
     dist[goal_rc] = 0.0
     blocked = grid

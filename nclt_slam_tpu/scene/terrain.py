@@ -4,8 +4,8 @@ The reference scene's terrain is a closed-form multi-octave sine field with a
 flattened S-curve road corridor (run_husky_forest.py:521-536 and
 convert_gazebo_to_isaac.py:173-196 — the two must match, and ours matches
 both).  Because it is analytic we never store a heightfield: the dynamics
-step and the depth raycaster just evaluate ``terrain_height(x, y)`` — ideal
-for TPU since every query is pure vectorized math with zero memory traffic.
+step and the depth raycaster just evaluate ``terrain_height(x, y)`` — every
+query is pure vectorized math with no memory traffic.
 """
 
 from __future__ import annotations
@@ -41,9 +41,8 @@ def road_y(x):
 
     Implemented as an exact hat-function (linear B-spline) sum over the
     uniformly spaced knots instead of ``jnp.interp``: interp lowers to a
-    gather-based searchsorted which measured ~170 ms per 15-route raycast
-    (2.3M samples) on TPU — ~50x the cost of the 7-octave sine field.  The
-    unrolled 36-term clip/fma chain is pure element-wise VPU work that XLA
+    gather-based searchsorted over the 2.3M samples of a 15-route raycast.
+    The unrolled 36-term clip/fma chain is pure element-wise work that XLA
     fuses into the surrounding march."""
     x = jnp.asarray(x, jnp.float32)
     xc = jnp.clip(x, float(ROAD_WPS[0, 0]), float(ROAD_WPS[-1, 0]))

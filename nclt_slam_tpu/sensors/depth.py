@@ -1,6 +1,6 @@
 """Analytic depth raycaster — the RGB-D sensor model.
 
-TPU-native replacement for the Isaac RTX ``distance_to_image_plane``
+Batched replacement for the Isaac RTX ``distance_to_image_plane``
 annotator (run_husky_forest.py:453-458): rays from a D435i-like pinhole
 camera are intersected analytically against (a) the closed-form terrain
 heightfield (fixed-step marching, first-crossing) and (b) the packed scene
@@ -98,9 +98,8 @@ def _terrain_hit(origin, dirs_w, cfg: CameraConfig):
     h_fn = terrain_height_tex if cfg.ray_terrain_tex else terrain_height
 
     # LAYOUT: keep x/y/z as separate (..., rows, cols) planes.  A trailing
-    # size-3 coordinate dim puts 3 on the minor (128-lane) axis of the TPU
-    # tile — ~2 % lane utilization and strided slices — and measured ~100x
-    # slower than the identical math on clean planes.
+    # size-3 coordinate dim would make every element-wise op a strided
+    # access over a size-3 minor axis.
     dx, dy, dz_w = dirs_w[..., 0], dirs_w[..., 1], dirs_w[..., 2]
 
     def first_below(t0, step, n):

@@ -422,26 +422,39 @@ def hamming(d1, d2):
     return jax.lax.population_count(x).sum(-1).astype(jnp.int32)
 
 
+CROSS_CHECK_BIG = 10 ** 6   # distance given to pairs with an invalid side
+
+
+def cross_check_match_reference(desc_a, valid_a, desc_b, valid_b,
+                                max_dist: int = 64):
+    """Host numpy brute force of ``cross_check_match`` (bit-unpacking
+    popcount, explicit loops over A for the mutual check): the plain
+    reference the device matcher must equal exactly.  Returns
+    (best_ab, matched, best_d) as numpy arrays."""
+    da = np.asarray(desc_a, np.uint32)
+    db = np.asarray(desc_b, np.uint32)
+    x = da[:, None, :] ^ db[None, :, :]
+    h = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1).astype(np.int64)
+    ok = np.asarray(valid_a, bool)[:, None] & np.asarray(valid_b, bool)[None]
+    h = np.where(ok, h, CROSS_CHECK_BIG)
+    best_ab = h.argmin(axis=1)
+    best_ba = h.argmin(axis=0)
+    best_d = h[np.arange(len(da)), best_ab]
+    matched = np.array([best_ba[best_ab[a]] == a for a in range(len(da))],
+                       bool) & (best_d <= max_dist)
+    return best_ab, matched, best_d
+
+
 def cross_check_match(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
                       return_dist: bool = False):
     """BFMatcher(crossCheck=True) equivalent: mutual nearest neighbors under
     a Hamming cap.  Returns (match_idx (A,), matched (A,)) mapping a->b;
     with ``return_dist`` also the per-a best distance (novelty gate).
 
-    On TPU this dispatches to the fused Pallas kernel (ops/hamming_pallas):
-    one launch, ±1-bit MXU matmul, gather-free mutual check — exact
-    agreement with the XLA path below is asserted in tests/test_ops.py."""
-    if jax.default_backend() == "tpu":
-        from nclt_slam_tpu.ops.hamming_pallas import cross_check_pallas
-
-        best_ab, matched, best_d = cross_check_pallas(
-            desc_a, valid_a, desc_b, valid_b, max_dist=max_dist)
-        if return_dist:
-            return best_ab, matched, best_d
-        return best_ab, matched
-
+    XLA fuses the xor, the popcount (one instruction per word on a GPU), the
+    word sum and both argmins; ties resolve to the lowest index."""
     h = hamming(desc_a, desc_b)
-    big = jnp.int32(10 ** 6)
+    big = jnp.int32(CROSS_CHECK_BIG)
     h = jnp.where(valid_a[:, None] & valid_b[None, :], h, big)
     best_ab = jnp.argmin(h, axis=1)                  # (A,)
     best_ba = jnp.argmin(h, axis=0)                  # (B,)

@@ -2,7 +2,7 @@
 
 The reference's observability is throttled log lines + a startup topic-Hz
 check (run_husky_forest.py:615-624).  Here: a steps/sec rate counter for
-rollout loops, a ``jax.profiler`` trace context for TPU timeline captures,
+rollout loops, a ``jax.profiler`` trace context for device timeline captures,
 and structured rollout statistics extracted from traces (the single
 trace-array-per-rollout design replacing the reference's 8 log files).
 """

@@ -1,10 +1,10 @@
 """Sliding-window visual-inertial bundle adjustment (the flagship solver).
 
 Capability match for ORB-SLAM3's g2o local-mapping BA (SURVEY.md §2.3 /
-hard part #1), reshaped for the TPU: fixed window of K keyframe poses and
+hard part #1), reshaped for batched accelerators: fixed window of K keyframe poses and
 P landmarks, dense block algebra, Schur complement over the landmarks, and
 a Cholesky solve of the reduced (6K x 6K) camera system — all einsums and
-small batched matrices that map straight onto the MXU, iterated a fixed
+small batched matrices that map onto matrix units, iterated a fixed
 ``iters`` count under ``lax.scan``.
 
 Factors:
@@ -172,7 +172,7 @@ def solve_ba(prob: BAProblem, cam: CameraConfig, cfg: VioConfig,
         Jpw = Jp * w[..., None, None]
         Jlw = Jl * w[..., None, None]
 
-        # normal-equation blocks (all MXU einsums)
+        # normal-equation blocks (all einsums)
         H_pp = jnp.einsum("kpri,kprj->kij", Jpw, Jp)            # (K, 6, 6)
         H_ll = jnp.einsum("kpri,kprj->pij", Jlw, Jl)            # (P, 3, 3)
         H_pl = jnp.einsum("kpri,kprj->kpij", Jpw, Jl)           # (K, P, 6, 3)
@@ -236,14 +236,14 @@ def solve_ba(prob: BAProblem, cam: CameraConfig, cfg: VioConfig,
         H_ll_inv = _inv3x3(H_ll + damping * jnp.eye(3)[None])   # (P, 3, 3)
         B = H_pl.transpose(1, 0, 2, 3).reshape(P, 6 * K, 3)     # (P, 6K, 3)
         C = jnp.einsum("pai,pij->paj", B, H_ll_inv)             # (P, 6K, 3)
-        # big-contraction matmul form: (6K, 3P) @ (3P, 6K) on the MXU
+        # big-contraction matmul form: (6K, 3P) @ (3P, 6K)
         S_corr = jnp.einsum("paj,pbj->ab", C, B)
         g_corr = jnp.einsum("paj,pj->a", C, g_l)
 
         S = H - S_corr + damping * jnp.eye(6 * K)
         rhs = -(g - g_corr)
         # S is symmetric positive definite (damped Schur complement):
-        # Cholesky + two triangular solves, cheaper on TPU than LU
+        # Cholesky + two triangular solves, cheaper than LU
         L = jnp.linalg.cholesky(S)
         y = jax.scipy.linalg.solve_triangular(L, rhs, lower=True)
         delta_p = jnp.nan_to_num(

@@ -112,7 +112,7 @@ def init_vio(desc_words: int, window_kf: int = 10) -> VioState:
         kf_obs_uv=jnp.zeros((K, KF_OBS, 2)),
         kf_obs_z=jnp.zeros((K, KF_OBS)),
         kf_obs_valid=jnp.zeros((K, KF_OBS), bool),
-        last_kf_pos=jnp.full(3, 1e9),
+        last_kf_pos=jnp.full(3, 1e9, jnp.float32),
         emit_scale=jnp.float32(1.0),
         emit_off=jnp.zeros(3),
         dist_since_event=jnp.float32(0.0),
@@ -284,7 +284,7 @@ def vio_frame(state: VioState, obs: Observation, imu_block_meas, dt_frame,
     vel_new = vel_new * jnp.minimum(
         1.0, 2.0 / (jnp.linalg.norm(vel_new) + 1e-9))
 
-    # ---- relocalization (ORB-SLAM3 Relocalization(), TPU form) ----
+    # ---- relocalization (ORB-SLAM3 Relocalization(), fixed-shape form) ----
     # While lost the pose is frozen, so the projection gate can never
     # re-admit matches once the robot has moved on.  Instead: descriptor-
     # only mutual matches against the persistent map, 3-D/3-D weighted

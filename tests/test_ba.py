@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nclt_slam_tpu.config import DEFAULT
 from nclt_slam_tpu.core.quat import quat_conj, quat_from_yaw, quat_mul, quat_to_mat, so3_exp
@@ -93,3 +94,47 @@ def test_ba_vmaps_over_windows():
     out = f(batch)
     assert out.kf_pos.shape == (3, 6, 3)
     assert bool(jnp.isfinite(out.kf_pos).all())
+
+
+@pytest.mark.parametrize("K,P", [(6, 40), (10, 48), (10, 128), (16, 64)])
+def test_ba_window_sizes(K, P):
+    """Rollout-scale window shapes (window_kf x KF_OBS) converge from a
+    perturbed start toward the true poses and points."""
+    prob, gt_pos, _, pts, pos0, pts0 = make_problem(K=K, P=P, seed=K + P)
+    res = jax.jit(lambda p: solve_ba(p, CFG.camera, CFG.vio, iters=10))(prob)
+    pe0 = np.linalg.norm(pos0 - gt_pos, axis=-1).mean()
+    pe1 = np.linalg.norm(np.asarray(res.kf_pos) - gt_pos, axis=-1)
+    assert np.isfinite(pe1).all()
+    assert pe1.mean() < 0.25 * pe0, (pe0, pe1)
+    assert pe1.max() < 0.05, pe1
+    le0 = np.linalg.norm(pts0 - pts, axis=-1).mean()
+    le1 = np.linalg.norm(np.asarray(res.points) - pts, axis=-1).mean()
+    assert le1 < 0.5 * le0, (le0, le1)
+
+
+def test_ba_point_prior():
+    """The per-point position prior pins landmarks to their input
+    estimates: a strong prior keeps them there, none lets them move."""
+    prob, *_ = make_problem(seed=5, P=40)
+    solve = jax.jit(lambda p: solve_ba(p, CFG.camera, CFG.vio, iters=6))
+    free = solve(prob)
+    pinned = solve(prob._replace(pt_prior_w=jnp.full((40,), 1e4,
+                                                     jnp.float32)))
+    move_free = np.linalg.norm(np.asarray(free.points - prob.points), axis=-1)
+    move_pin = np.linalg.norm(np.asarray(pinned.points - prob.points), axis=-1)
+    assert move_pin.mean() < 0.25 * move_free.mean(), (move_pin.mean(),
+                                                       move_free.mean())
+    assert np.isfinite(np.asarray(pinned.kf_pos)).all()
+
+
+def test_ba_batched_equals_single():
+    """vmap over windows is a pure batching decision: each window's
+    solution equals its own unbatched solve."""
+    probs = [make_problem(K=10, P=48, seed=s)[0] for s in range(2)]
+    batch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *probs)
+    f = lambda p: solve_ba(p, CFG.camera, CFG.vio, iters=6)  # noqa: E731
+    out = jax.jit(jax.vmap(f))(batch)
+    for i, p in enumerate(probs):
+        one = jax.jit(f)(p)
+        np.testing.assert_allclose(out.kf_pos[i], one.kf_pos, atol=1e-4)
+        np.testing.assert_allclose(out.points[i], one.points, atol=1e-3)

@@ -40,7 +40,7 @@ def test_run_dataset_4seasons_tiny(tmp_path):
     """End-to-end on a tiny tick budget: table + JSON + EuRoC tree exist,
     VI mode tracks the benign session."""
     payload = run_dataset("4seasons", tmp_path, n_ticks=400,
-                          platform="cpu", export=True, seed=5)
+                          export=True, seed=5)
     rows = payload["rows"]
     assert set(rows) == {"spring", "autumn"}
     assert rows["spring"]["tracked_pct"] > 90.0
@@ -56,6 +56,6 @@ def test_run_dataset_robotcar_ins_imu(tmp_path):
     """RobotCar path synthesizes the INS pseudo-IMU; its yaw-rate stream
     must correlate with the simulated Phidgets gyro (frame sanity)."""
     payload = run_dataset("robotcar", tmp_path, n_ticks=400,
-                          platform="cpu", export=True, seed=6)
+                          export=True, seed=6)
     for row in payload["rows"].values():
         assert row["ins_imu_gyro_corr"] > 0.9

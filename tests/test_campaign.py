@@ -18,8 +18,8 @@ from nclt_slam_tpu.rollout.campaign import (
 )
 
 
-def small_cfg():
-    base = cfg_mod.gt_localization()
+def small_cfg(base=None):
+    base = base or cfg_mod.gt_localization()
     return base.replace(
         camera=dataclasses.replace(base.camera, ray_cols=16, ray_rows=12,
                                    ray_steps=32),
@@ -72,6 +72,66 @@ def test_sharded_campaign_runs_on_mesh(mini_campaign):
     assert np.isfinite(gt).all()
     # route 0 and its replica pads agree (same inputs, same seed)
     assert np.allclose(gt[2], gt[3])
+
+
+def test_sharded_campaign_with_stores_matches_unsharded(mini_campaign):
+    """The ours stack sharded over 4 devices, WITH the teach landmark
+    stores, equals the one-device run route by route (the mesh is a layout
+    decision), and the stores reach the sharded matcher."""
+    _, data, teach = mini_campaign
+    cfg = small_cfg(cfg_mod.ours())
+    wps, n_wps = teach_waypoints(data, teach, cfg)
+    kw = dict(stores=teach.store, chunk=20, stop_when_done=False)
+    one = run_campaign_repeat(data, teach.teach_grid, wps, n_wps, cfg, 40,
+                              **kw)
+    four = sharded_campaign_repeat(data, teach.teach_grid, wps, n_wps, cfg,
+                                   40, mesh=route_mesh(4), **kw)
+    assert four.trace.gt_xy.shape[:2] == (4, 40)     # padded to the mesh
+    assert len(four.final.robot.xy.sharding.device_set) == 4
+    g1 = np.asarray(one.trace.gt_xy)
+    g4 = np.asarray(four.trace.gt_xy)
+    assert np.allclose(g4[:2], g1, atol=1e-4), np.abs(g4[:2] - g1).max()
+    assert np.array_equal(np.asarray(four.trace.anchor_reason)[:2],
+                          np.asarray(one.trace.anchor_reason))
+    # teach stores present: attempts find candidates (reason 1 would be
+    # "no candidates", what empty stores give)
+    reasons = np.asarray(four.trace.anchor_reason)[:2]
+    tried = reasons[reasons >= 0]
+    assert tried.size and (tried != 1).any(), np.unique(reasons)
+    trimmed = jax.tree_util.tree_map(lambda x: np.asarray(x)[:2], four)
+    per4, _ = campaign_metrics(data, trimmed, wps, n_wps, cfg)
+    per1, _ = campaign_metrics(data, one, wps, n_wps, cfg)
+    for name in data.names:
+        for k in ("cov_visited", "reached_final", "gt_samples"):
+            assert per4[name][k] == per1[name][k], (name, k)
+
+
+def _avals(tree):
+    return [(jax.tree_util.keystr(k), x.shape, x.dtype, x.weak_type)
+            for k, x in jax.tree_util.tree_leaves_with_path(tree)]
+
+
+def test_carry_types_stable_across_chunks(mini_campaign):
+    """Initial carries have the shapes, dtypes AND weak types the scan
+    gives back, so each chunk program traces and compiles once — a
+    weak-typed initial leaf made every campaign compile twice."""
+    from nclt_slam_tpu.rollout.repeat import init_repeat_carry, run_repeat
+    from nclt_slam_tpu.rollout.teach import init_teach_carry
+
+    cfg, data, teach = mini_campaign
+    init_t = jax.vmap(lambda rt: init_teach_carry(rt, cfg))(data.routes)
+    assert _avals(init_t) == _avals(teach.final)
+
+    one = jax.tree_util.tree_map(lambda x: x[0], (
+        data.scenes_repeat, data.routes, teach.teach_grid, teach.store))
+    sc, rt, tg, st = one
+    ours = small_cfg(cfg_mod.ours())
+    init_r = jax.eval_shape(
+        lambda rt: init_repeat_carry(rt, rt.wps, rt.n_wps, ours), rt)
+    out_r = jax.eval_shape(
+        lambda c: run_repeat(sc, rt, tg, rt.wps, rt.n_wps, ours, 2,
+                             store=st, carry=c).final, init_r)
+    assert _avals(init_r) == _avals(out_r)
 
 
 def test_eval_primitives():

@@ -84,8 +84,8 @@ def test_csv_parser_matches_python():
     assert np.allclose(a, b)
 
 
-def test_tpu_mapper_agrees_with_native_bresenham():
-    """The scatter-based TPU occupancy update must agree with the native
+def test_jax_mapper_agrees_with_native_bresenham():
+    """The scatter-based JAX occupancy update must agree with the native
     reference-exact Bresenham where it counts: endpoint cells occupied and
     the ray corridor cleared (the two formulations differ in per-cell free
     evidence, not in structure)."""
@@ -132,8 +132,8 @@ def test_tpu_mapper_agrees_with_native_bresenham():
         bresenham_update(g_ref, int(r0), int(c0), r1, c1)
 
     occ_ref = g_ref > np.log(0.65 / 0.35)
-    # every reference-occupied endpoint cell is occupied in the TPU map
+    # every reference-occupied endpoint cell is occupied in the JAX map
     assert (tri[occ_ref] == 2).mean() > 0.95
-    # the cleared corridor is free/known in the TPU map too
+    # the cleared corridor is free/known in the JAX map too
     free_ref = g_ref < np.log(0.25 / 0.75)
     assert (tri[free_ref] != 2).mean() > 0.98

@@ -11,7 +11,7 @@ statistics against its outcome distribution.  Three layers:
    the artifact test use — if the constants drift from the CSV, this fails.
 2. artifact parity: the committed calibration artifact
    (artifacts/calibration/ours.json, produced by ``python tools/calibrate.py
-   --routes ... --json ...`` on the TPU) must match the reference
+   --routes ... --json ...`` on the earlier accelerator) must match the reference
    distribution within tolerance.
 3. live distribution sanity (slow): a short CPU campaign must produce all
    outcome families in reference-like proportions.
@@ -77,7 +77,7 @@ def test_reference_csv_parse():
 @pytest.mark.skipif(not ARTIFACT.exists(),
                     reason="calibration artifact not generated yet")
 def test_calibration_artifact_distribution():
-    """The committed TPU calibration run must land inside the reference's
+    """The committed calibration run must land inside the reference's
     outcome-distribution bands (the 'distribution tests green' criterion of
     the behavior-calibration milestone)."""
     d = json.loads(ARTIFACT.read_text())

@@ -1,7 +1,8 @@
 """End-to-end slice: teach -> artefacts -> repeat with GT localization.
 
 Uses a miniature scene + route + decimated sensors so the whole loop runs
-in seconds on the CPU mesh; the full-scale campaign runs on TPU via bench.
+in seconds on the CPU mesh; the full-scale campaign runs on the GPU
+(chip_smoke.py, bench.py).
 """
 
 import dataclasses

@@ -2,7 +2,7 @@
 
 Mirrors the reference's TestTransforms coverage
 (datasets/nclt_kaggle/tests/test_dataset.py / test_models.py:127-193) on
-the TPU-native static-shape pipeline, plus the RGB-D association and
+the static-shape pipeline, plus the RGB-D association and
 fisheye rectification math of the ROVER scripts.
 """
 

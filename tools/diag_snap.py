@@ -6,7 +6,7 @@ loop needs: where backend events fire, how the nav error evolves between
 anchors, where the dispatcher stalls, and what the live costmap did.
 
     python tools/diag_snap.py --route 02_north_forest --mode ours \
-        [--ticks 12000] [--platform tpu|cpu]
+        [--ticks 12000] [--platform cpu]
 """
 
 from __future__ import annotations
@@ -24,13 +24,13 @@ def main():
     ap.add_argument("--mode", default="ours")
     ap.add_argument("--ticks", type=int, default=12000)
     ap.add_argument("--teach-ticks", type=int, default=12000)
-    ap.add_argument("--platform", default="tpu")
+    ap.add_argument("--platform", default=None, choices=["cpu"],
+                    help="force the CPU (default: JAX's choice, the GPU)")
     args = ap.parse_args()
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    init_runtime(args.platform)
     import numpy as np
 
     from nclt_slam_tpu.cli.common import MODES

@@ -23,8 +23,9 @@ def main():
     ap.add_argument("--ticks", type=int, default=100)
     ap.add_argument("--platform", default=None)
     args = ap.parse_args()
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from nclt_slam_tpu.runtime import init_runtime
+
+    init_runtime(args.platform)
 
     from nclt_slam_tpu import config as cfg_mod
     from nclt_slam_tpu.landmarks.store import init_store
@@ -78,8 +79,6 @@ def main():
     variant(base.replace(mode=dataclasses.replace(base.mode,
                                                   use_anchors=False)),
             "ours - anchors (matcher)")
-    variant(base.replace(planner=P(use_pallas=False)),
-            "ours - pallas wavefront (jnp fallback)")
     variant(base.replace(planner=P(sweeps=1)), "ours planner sweeps=1")
     variant(base.replace(camera=C(ray_steps=48)), "ours ray_steps=48")
     variant(base.replace(camera=C(ray_cols=40, ray_rows=30)),

@@ -205,10 +205,9 @@ def main():
     ap.add_argument("--platform", default=None)
     args = ap.parse_args()
 
-    import jax
+    from nclt_slam_tpu.runtime import init_runtime
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    init_runtime(args.platform)
 
     from nclt_slam_tpu.datasets.slam.pipeline import run_slam
 
